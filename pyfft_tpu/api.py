@@ -23,7 +23,7 @@ def get_plan(shape, dtype=np.complex64, **kwargs) -> Plan:
     """Memoized ``Plan`` for the functional wrappers.
 
     The cache is unbounded by design: a Plan is a handful of Python
-    objects plus jit caches keyed by batch shape, and FFT workloads reuse
+    objects plus its jitted executables, and FFT workloads reuse
     a small set of shapes (the reference likewise expected plans to be
     built once and reused — SURVEY.md §3.1 "hot spot").  Applications
     cycling through unbounded distinct shapes should construct ``Plan``
@@ -79,8 +79,7 @@ def _transform(x, ndim, inverse, axes=None, **kwargs):
     out = plan.execute(x, inverse=inverse)
     if moved is not None:
         trailing, axes = moved
-        mover = np if isinstance(out, np.ndarray) else jnp
-        out = mover.moveaxis(out, trailing, axes)
+        out = jnp.moveaxis(out, trailing, axes)
     return out
 
 

@@ -1,21 +1,10 @@
-"""CPU/debug backend entry point: ``from pyfft_tpu.cpu import Plan``.
+"""``from pyfft_tpu.cpu import Plan`` — the same ``Plan`` as the package's.
 
 Parity shim with the reference's second backend module (``pyfft/cl.py``,
-SURVEY.md §2.7).  Forces the pure-XLA planar path (no Pallas), which runs on
-any JAX backend — this is also the suite the tests exercise without TPU
-hardware, fixing the reference's "needs a real device" weakness (SURVEY.md §4).
+SURVEY.md §2.7).  There is one executor, XLA's FFT op, and it runs on every
+JAX backend, so this module only re-exports ``pyfft_tpu.plan.Plan``.
 """
 
-from __future__ import annotations
-
-from pyfft_tpu.plan import Plan as _Plan
+from pyfft_tpu.plan import Plan
 
 __all__ = ["Plan"]
-
-
-class Plan(_Plan):
-    def __init__(self, shape, dtype=None, **kwargs):
-        import numpy as np
-        kwargs["force_xla"] = True
-        super().__init__(shape, dtype if dtype is not None else np.complex64,
-                         **kwargs)

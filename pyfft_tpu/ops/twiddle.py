@@ -1,21 +1,17 @@
 """Twiddle-factor and DFT-matrix tables.
 
-TPU-native replacement for the reference's in-kernel twiddle generation
+Host-computed replacement for the reference's in-kernel twiddle generation
 (``pyfft/kernels.mako``: ``complexMul`` + ``sincos``-based twiddles,
-SURVEY.md §2.5).  On a GPU, recomputing ``sincos`` per thread is cheap and
-saves bandwidth; on TPU the idiomatic choice is the opposite: twiddles are
-small, shape-static tables that the planner bakes in as constants, XLA keeps
-them resident in VMEM across grid steps, and the MXU consumes full DFT
-matrices directly.
+SURVEY.md §2.5), used by the plain einsum reference (``reference.py``) and
+the cross-device DFT of ``parallel/dist.py``.
 
 All tables are computed on the host in float64 with exact integer phase
 reduction (j*k mod n is exact in int64 for every n this library accepts),
 then rounded *once* to the target dtype — this is what keeps deep multi-stage
-plans inside the ~1e-6 (c64) / ~1e-12 (c128) parity gates (SURVEY.md §6).
+chains inside the ~1e-6 (c64) / ~1e-12 (c128) parity gates (SURVEY.md §6).
 
-Everything here returns *planar* (real, imag) float pairs: the framework is
-complex-free internally, because TPU compute units (MXU/VPU) operate on real
-lanes; a complex multiply is expressed as 4 real matmuls / mults.
+Everything here returns *planar* (real, imag) float pairs, the form the
+einsum reference works in.
 """
 
 from __future__ import annotations
@@ -24,8 +20,7 @@ import functools
 
 import numpy as np
 
-__all__ = ["dft_matrix", "twiddle_table", "twiddle_table_strided",
-           "FORWARD", "INVERSE"]
+__all__ = ["dft_matrix", "twiddle_table", "FORWARD", "INVERSE"]
 
 FORWARD = -1
 INVERSE = +1
@@ -62,17 +57,3 @@ def twiddle_table(rows: int, cols: int, n: int, sign: int, dtype=np.float32) -> 
     """
     tr, ti = _phase_table(rows, cols, n, sign)
     return tr.astype(dtype), ti.astype(dtype)
-
-
-def twiddle_table_strided(rows: int, cols: int, n: int, sign: int,
-                          col_stride: int, dtype=np.float32):
-    """T[a, b] = exp(sign * 2*pi*i * a*(b*col_stride) / n), phases reduced
-    exactly in int64.  The column stream of a factored huge-N twiddle:
-    T_full[a, q*col_stride + r] = T_strided[a, q] * T_full[a, r]."""
-    r = np.arange(rows, dtype=np.int64)[:, None]
-    c = (np.arange(cols, dtype=np.int64) * col_stride) % n
-    k = (r * c[None, :]) % n
-    theta = (2.0 * np.pi / n) * k.astype(np.float64)
-    if sign < 0:
-        theta = -theta
-    return np.cos(theta).astype(dtype), np.sin(theta).astype(dtype)

@@ -1,10 +1,11 @@
 """Distributed FFT over a JAX device mesh.
 
 The reference is strictly single-device (SURVEY.md §2: "no NCCL/MPI/Gloo/UCX
-anywhere"); this module is the TPU-native *extension* the survey names as the
-natural stretch goal: the four-step decomposition's transpose step becomes
-`all_to_all` over ICI, so one transform can span chips, and batch parallelism
-is plain sharding over the data axis.
+anywhere"); this module is the *extension* the survey names as the natural
+stretch goal: the four-step decomposition's transpose step becomes
+`all_to_all` over the mesh, so one transform can span devices, and batch
+parallelism is plain sharding over the data axis.  On NVIDIA GPUs XLA hands
+each `all_to_all` to NCCL; nothing touches the host.
 
 Mesh contract (mesh axis names are parameters):
   * ``dp`` — batch parallelism: transforms are independent, no communication.
@@ -12,14 +13,17 @@ Mesh contract (mesh axis names are parameters):
     FFT on S devices runs as
 
       1. all_to_all      j-chunks -> all outer digits j1 for a j2-slice
-      2. local S-point DFT over j1 (the cross-device factor)   [matmul]
+      2. local S-point DFT over j1 (the cross-device factor)   [einsum]
       3. twiddle w_N^(j1_out * j2_global)
       4. all_to_all      -> full j2 range for this device's k1
-      5. local length-L FFT over j2 (the heavy, on-chip factor — the same
-         planner/kernel stack as single-chip plans)
+      5. local length-L FFT over j2 (the heavy factor — one XLA FFT op,
+         as in single-device plans)
       6. all_to_all      strided spectral index -> contiguous shards
 
-All collectives ride the mesh's ICI; nothing touches the host.
+Inputs and outputs are planar (re, im) arrays; inside the shard_map body each
+shard is one complex array, so every exchange is a single `all_to_all` and
+every local FFT is one XLA FFT op (cuFFT on a GPU).  complex128 runs through
+the same code on float64 planes (``jax_enable_x64``).
 """
 
 from __future__ import annotations
@@ -33,89 +37,83 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from pyfft_tpu.ops.twiddle import dft_matrix
-from pyfft_tpu.reference import fft_planar
 from pyfft_tpu.utils.radix import is_power_of_two
 
 __all__ = ["dist_fft_1d", "make_dist_fft", "make_dist_fft2",
-           "make_dist_fft3", "make_dist_fft_df64"]
+           "make_dist_fft3"]
 
 
-def _local_fft(re, im, sign):
-    """On-chip FFT along the last axis inside the shard_map body.
+def _a2a(x, seq_axis: str, split: int, concat: int):
+    # all_to_all rejects negative axis indices — normalize.
+    return jax.lax.all_to_all(x, seq_axis, split_axis=split % x.ndim,
+                              concat_axis=concat % x.ndim, tiled=True)
 
-    The per-shard heavy factor goes through the same kernel stack as
-    single-chip plans: the fused Pallas local kernel when the shard shape
-    fits it (interpret mode off-TPU), the planar XLA path otherwise.
-    """
-    from pyfft_tpu.ops import pallas_local
-    if pallas_local.supported(re, re.ndim - 1):
-        return pallas_local.fft_axis(re, im, sign, axis=-1)
-    return fft_planar(re, im, sign, axis=-1)
+
+def _local_fft(x, sign: int, axes: tuple[int, ...]):
+    """Local FFT of a complex shard over ``axes``: forward for sign=-1, and
+    for sign=+1 numpy's inverse, which divides by the product of the axis
+    lengths (the callers fold that into their one final multiply)."""
+    if sign < 0:
+        return jnp.fft.fftn(x, axes=axes)
+    return jnp.fft.ifftn(x, axes=axes)
+
+
+def _finish(x, scale: float):
+    if scale != 1.0:
+        x = x * scale
+    return jnp.real(x), jnp.imag(x)
 
 
 def _dist_fft_body(re, im, *, sign: int, n: int, s: int, seq_axis: str,
-                   norm: float):
+                   scale: float):
     """shard_map body: local blocks (..., L) with L = n // s."""
     L = n // s
-    dtype = re.dtype
+    rdt = re.dtype
     me = jax.lax.axis_index(seq_axis)
+    x = jax.lax.complex(re, im)
+    lead = x.shape[:-1]
 
     # Step 1: gather every outer digit j1 for a slice of j2.
-    # local (..., L) -> (..., S, L/S); axis -2 indexes the source device j1.
-    def a2a(x, split, concat):
-        # all_to_all rejects negative axis indices — normalize.
-        return jax.lax.all_to_all(x, seq_axis, split_axis=split % x.ndim,
-                                  concat_axis=concat % x.ndim, tiled=True)
+    # all_to_all(tiled): split j2 (last axis) into S chunks, exchange, and
+    # stack the received j1 digits on a new axis -2.
+    x = _a2a(x[..., None, :], seq_axis, -1, -2)   # (..., S(j1), L/S(j2))
 
-    lead = re.shape[:-1]
-    # all_to_all(tiled): split local axis into S chunks along `split_axis`,
-    # exchange, concatenate along `concat_axis`.  We split j2 (last axis)
-    # and stack the received j1 digits on a new axis:
-    re2 = a2a(re[..., None, :], -1, -2)     # (..., S(j1), L/S(j2 slice))
-    im2 = a2a(im[..., None, :], -1, -2)
-
-    # Step 2: S-point DFT over j1 (cross-device factor) — a small matmul.
-    wr, wi = dft_matrix(s, sign, np.float32 if dtype == jnp.float32 else np.float64)
-    wr = jnp.asarray(wr, dtype)
-    wi = jnp.asarray(wi, dtype)
-    cr = jnp.einsum("kj,...jl->...kl", wr, re2) - jnp.einsum("kj,...jl->...kl", wi, im2)
-    ci = jnp.einsum("kj,...jl->...kl", wr, im2) + jnp.einsum("kj,...jl->...kl", wi, re2)
+    # Step 2: S-point DFT over j1 (cross-device factor) — a small
+    # contraction.  HIGHEST keeps a float32 product out of TF32 on a GPU.
+    wr, wi = dft_matrix(s, sign, np.float64)
+    w = jnp.asarray(wr + 1j * wi, x.dtype)
+    x = jnp.einsum("kj,...jl->...kl", w, x,
+                   precision=jax.lax.Precision.HIGHEST)
 
     # Step 3: twiddle w_N^(k1 * j2_global); j2_global = me*(L/S) + local.
     # The phase index is reduced mod n in integers BEFORE the float cast:
     # k1*j2 < n always, but reducing keeps the float32 angle error bounded
     # by 2^-24 of a full turn for every n (an unreduced f32 product loses
-    # integer exactness beyond 2^24 — the kernel paths' twiddle tables are
-    # exact for the same reason, see ops/twiddle.py).
+    # integer exactness beyond 2^24 — the tables of ops/twiddle.py are
+    # exact for the same reason).
     k1 = jax.lax.broadcasted_iota(jnp.int32, (s, L // s), 0)
     j2 = jax.lax.broadcasted_iota(jnp.int32, (s, L // s), 1) + me * (L // s)
     m = (k1 * j2) % np.int32(n) if n < 2 ** 31 else (
-        (k1.astype(jnp.int64) * j2.astype(jnp.int64)) % n).astype(jnp.int64)
-    ang = m.astype(dtype) * dtype.type(
-        (-2.0 if sign < 0 else 2.0) * math.pi / n)
-    tr, ti = jnp.cos(ang), jnp.sin(ang)
-    dr = cr * tr - ci * ti
-    di = cr * ti + ci * tr
+        (k1.astype(jnp.int64) * j2.astype(jnp.int64)) % n)
+    ang = m.astype(rdt) * rdt.type((-2.0 if sign < 0 else 2.0) * math.pi / n)
+    x = x * jax.lax.complex(jnp.cos(ang), jnp.sin(ang))
 
     # Step 4: full j2 range for this device's k1 digit.
-    er = a2a(dr, -2, -1)                     # (..., 1, L)
-    ei = a2a(di, -2, -1)
-    er = er.reshape(*lead, L)
-    ei = ei.reshape(*lead, L)
+    x = _a2a(x, seq_axis, -2, -1).reshape(*lead, L)
 
-    # Step 5: the heavy on-chip factor.
-    fr, fi = _local_fft(er, ei, sign)        # (..., L) over k2
+    # Step 5: the heavy local factor.
+    x = _local_fft(x, sign, (-1,))                # (..., L) over k2
 
-    # Step 6: strided k = k2*S + k1(=me) -> contiguous shards.
-    gr = a2a(fr.reshape(*lead, s, L // s), -2, -1)   # (..., S(k1 src), L/S)
-    gi = a2a(fi.reshape(*lead, s, L // s), -2, -1)
-    # wait-free local interleave: out_local[m*S + u] = g[u, m]
-    gr = jnp.swapaxes(gr.reshape(*lead, s, L // s), -1, -2).reshape(*lead, L)
-    gi = jnp.swapaxes(gi.reshape(*lead, s, L // s), -1, -2).reshape(*lead, L)
-    if norm != 1.0:
-        c = dtype.type(norm)
-        gr, gi = gr * c, gi * c
-    return gr, gi
+    # Step 6: strided k = k2*S + k1(=me) -> contiguous shards, then the
+    # local interleave out_local[m*S + u] = g[u, m].
+    x = _a2a(x.reshape(*lead, s, L // s), seq_axis, -2, -1)
+    x = jnp.swapaxes(x.reshape(*lead, s, L // s), -1, -2).reshape(*lead, L)
+    return _finish(x, scale)
+
+
+def _shard_mapped(body, mesh: Mesh, spec):
+    return jax.jit(jax.shard_map(body, mesh=mesh, in_specs=(spec, spec),
+                                 out_specs=(spec, spec)))
 
 
 def make_dist_fft(mesh: Mesh, n: int, *, batch_axis: str = "dp",
@@ -124,53 +122,37 @@ def make_dist_fft(mesh: Mesh, n: int, *, batch_axis: str = "dp",
     """Build a jitted distributed 1D FFT over ``mesh``.
 
     Input/output: planar (re, im) arrays of shape (B, n), batch sharded over
-    ``batch_axis`` and the transform axis sharded over ``seq_axis``.
+    ``batch_axis`` and the transform axis sharded over ``seq_axis``;
+    float32 planes for complex64, float64 planes for complex128.
     """
     if not is_power_of_two(n):
         raise ValueError(f"n={n} is not a power of two")
     s = mesh.shape[seq_axis]
     if n % (s * s) != 0:
         raise ValueError(f"n={n} must be divisible by seq_parallel^2={s*s}")
-    norm = (1.0 / n) if (normalize and sign > 0) else 1.0
-
-    spec = P(batch_axis, seq_axis)
+    # the local inverse FFT divides by L = n / s; the cross-device DFT
+    # divides by nothing
+    scale = 1.0
+    if sign > 0:
+        scale = (1.0 / s) if normalize else float(n // s)
     body = functools.partial(_dist_fft_body, sign=sign, n=n, s=s,
-                             seq_axis=seq_axis, norm=norm)
-    # check_vma=False: pallas_call outputs don't carry varying-mesh-axis
-    # metadata, and every value here is trivially varying over both axes
-    mapped = jax.shard_map(body, mesh=mesh, in_specs=(spec, spec),
-                           out_specs=(spec, spec), check_vma=False)
-    return jax.jit(mapped)
+                             seq_axis=seq_axis, scale=scale)
+    return _shard_mapped(body, mesh, P(batch_axis, seq_axis))
 
 
-def _dist_fft2_body(re, im, *, sign: int, seq_axis: str, norm: float):
+def _dist_fft2_body(re, im, *, sign: int, seq_axis: str, scale: float):
     """shard_map body for 2D: local blocks (..., ny/S, nx).
 
     1. FFT over nx (fully local rows)
-    2. all_to_all: nx becomes sharded, ny becomes local (the ICI transpose)
+    2. all_to_all: nx becomes sharded, ny becomes local (the transpose)
     3. FFT over ny (now a fully local column pass)
     4. all_to_all back to the input layout
     """
-    def a2a(x, split, concat):
-        return jax.lax.all_to_all(x, seq_axis, split_axis=split % x.ndim,
-                                  concat_axis=concat % x.ndim, tiled=True)
-
-    from pyfft_tpu.ops import pallas_local
-
-    def local_axis_fft(r, i, axis, post=1.0):
-        if pallas_local.supported(r, axis):
-            return pallas_local.fft_axis(r, i, sign, axis=axis, postscale=post)
-        rr, ii = fft_planar(r, i, sign, axis=axis)
-        if post != 1.0:
-            c = rr.dtype.type(post)
-            rr, ii = rr * c, ii * c
-        return rr, ii
-
-    re, im = local_axis_fft(re, im, re.ndim - 1)          # rows (nx local)
-    re, im = a2a(re, -1, -2), a2a(im, -1, -2)             # (..., ny, nx/S)
-    re, im = local_axis_fft(re, im, re.ndim - 2, norm)    # columns (ny local)
-    re, im = a2a(re, -2, -1), a2a(im, -2, -1)             # (..., ny/S, nx)
-    return re, im
+    x = _local_fft(jax.lax.complex(re, im), sign, (-1,))
+    x = _a2a(x, seq_axis, -1, -2)                 # (..., ny, nx/S)
+    x = _local_fft(x, sign, (-2,))
+    x = _a2a(x, seq_axis, -2, -1)                 # (..., ny/S, nx)
+    return _finish(x, scale)
 
 
 def make_dist_fft2(mesh: Mesh, shape: tuple[int, int], *,
@@ -181,8 +163,8 @@ def make_dist_fft2(mesh: Mesh, shape: tuple[int, int], *,
     Input/output: planar (re, im) arrays of shape (B, ny, nx), batch sharded
     over ``batch_axis`` and the ny axis sharded over ``seq_axis``.  The
     row pass runs fully local, the inter-axis transpose is one
-    ``all_to_all`` over ICI each way, and the column pass runs local —
-    the multi-chip analog of the single-chip 2D pass chain.
+    ``all_to_all`` each way, and the column pass runs local — the
+    multi-device analog of the single-device 2D transform.
     """
     ny, nx = shape
     if not (is_power_of_two(ny) and is_power_of_two(nx)):
@@ -191,47 +173,26 @@ def make_dist_fft2(mesh: Mesh, shape: tuple[int, int], *,
     if ny % s or nx % s:
         raise ValueError(f"both axes of {shape} must be divisible by "
                          f"seq parallelism {s}")
-    norm = (1.0 / (ny * nx)) if (normalize and sign > 0) else 1.0
-    spec = P(batch_axis, seq_axis, None)
+    # the local inverse FFTs already divide by ny * nx
+    scale = float(ny * nx) if (sign > 0 and not normalize) else 1.0
     body = functools.partial(_dist_fft2_body, sign=sign, seq_axis=seq_axis,
-                             norm=norm)
-    mapped = jax.shard_map(body, mesh=mesh, in_specs=(spec, spec),
-                           out_specs=(spec, spec), check_vma=False)
-    return jax.jit(mapped)
+                             scale=scale)
+    return _shard_mapped(body, mesh, P(batch_axis, seq_axis, None))
 
 
-def _dist_fft3_body(re, im, *, sign: int, seq_axis: str, norm: float):
+def _dist_fft3_body(re, im, *, sign: int, seq_axis: str, scale: float):
     """shard_map body for 3D: local blocks (..., nz/S, ny, nx).
 
-    1. local 2D FFT over (ny, nx) per z-slice (the fused2d kernel when the
-       tile fits, else two local axis passes)
-    2. all_to_all: nx becomes sharded, nz local (the ICI transpose)
-    3. local column FFT over nz, normalization folded in
+    1. local 2D FFT over (ny, nx) per z-slice, one FFT op
+    2. all_to_all: nx becomes sharded, nz local (the transpose)
+    3. local FFT over nz
     4. all_to_all back to the input layout
     """
-    def a2a(x, split, concat):
-        return jax.lax.all_to_all(x, seq_axis, split_axis=split % x.ndim,
-                                  concat_axis=concat % x.ndim, tiled=True)
-
-    from pyfft_tpu.ops import pallas_local
-
-    if pallas_local.supported_2d(re):
-        re, im = pallas_local.fft2_fused(re, im, sign)
-    else:
-        re, im = fft_planar(re, im, sign, axis=re.ndim - 1)
-        re, im = fft_planar(re, im, sign, axis=re.ndim - 2)
-
-    re, im = a2a(re, -1, -3), a2a(im, -1, -3)     # (..., nz, ny, nx/S)
-    if pallas_local.supported(re, re.ndim - 3):
-        re, im = pallas_local.fft_axis(re, im, sign, axis=re.ndim - 3,
-                                       postscale=norm)
-    else:
-        re, im = fft_planar(re, im, sign, axis=re.ndim - 3)
-        if norm != 1.0:
-            c = re.dtype.type(norm)
-            re, im = re * c, im * c
-    re, im = a2a(re, -3, -1), a2a(im, -3, -1)     # (..., nz/S, ny, nx)
-    return re, im
+    x = _local_fft(jax.lax.complex(re, im), sign, (-2, -1))
+    x = _a2a(x, seq_axis, -1, -3)                 # (..., nz, ny, nx/S)
+    x = _local_fft(x, sign, (-3,))
+    x = _a2a(x, seq_axis, -3, -1)                 # (..., nz/S, ny, nx)
+    return _finish(x, scale)
 
 
 def make_dist_fft3(mesh: Mesh, shape: tuple[int, int, int], *,
@@ -242,8 +203,8 @@ def make_dist_fft3(mesh: Mesh, shape: tuple[int, int, int], *,
     Input/output: planar (re, im) arrays of shape (B, nz, ny, nx), batch
     sharded over ``batch_axis`` and the nz axis over ``seq_axis``.  The
     (ny, nx) planes transform fully locally per z-slice; one ``all_to_all``
-    each way moves the z axis on/off the chip boundary for its column pass
-    — the multi-chip analog of the single-chip fused2d + z-column schedule.
+    each way moves the z axis on/off the device boundary for its column
+    pass.
     """
     nz, ny, nx = shape
     for d in shape:
@@ -253,117 +214,11 @@ def make_dist_fft3(mesh: Mesh, shape: tuple[int, int, int], *,
     if nz % s or nx % s:
         raise ValueError(f"nz and nx of {shape} must be divisible by "
                          f"seq parallelism {s}")
-    norm = (1.0 / math.prod(shape)) if (normalize and sign > 0) else 1.0
-    spec = P(batch_axis, seq_axis, None, None)
+    # the local inverse FFTs already divide by nz * ny * nx
+    scale = float(math.prod(shape)) if (sign > 0 and not normalize) else 1.0
     body = functools.partial(_dist_fft3_body, sign=sign, seq_axis=seq_axis,
-                             norm=norm)
-    mapped = jax.shard_map(body, mesh=mesh, in_specs=(spec, spec),
-                           out_specs=(spec, spec), check_vma=False)
-    return jax.jit(mapped)
-
-
-def _dist_fft_df64_body(rh, rl, ih, il, twq, *, sign: int, n: int, s: int,
-                        seq_axis: str, norm: float):
-    """shard_map body for the distributed complex128 (double-float) FFT.
-
-    Same six-step structure as ``_dist_fft_body``, in df64 arithmetic:
-    the cross-device S-point DFT unrolls as df64 complex MACs against
-    host-exact df64 constants, and the inter-factor twiddle arrives as a
-    pre-sharded host-exact df64 table (f32 device trig would cap accuracy
-    at ~2^-24, far above the c128 gate).
-    """
-    from pyfft_tpu.ops.df64 import df64_const, df_add, df_cmul, df_scale_pow2
-    from pyfft_tpu.ops.pallas_df64 import fft_axis_df64
-
-    L = n // s
-
-    def a2a(x, split, concat):
-        return jax.lax.all_to_all(x, seq_axis, split_axis=split % x.ndim,
-                                  concat_axis=concat % x.ndim, tiled=True)
-
-    lead = rh.shape[:-1]
-    q = tuple(a2a(p[..., None, :], -1, -2) for p in (rh, rl, ih, il))
-
-    # S-point DFT over j1 (axis -2), unrolled df64 complex MACs
-    out = []
-    for k in range(s):
-        acc = None
-        for j in range(s):
-            ang = (sign * 2.0 * math.pi * ((k * j) % s)) / s
-            wrh, wrl = df64_const(np.float64(math.cos(ang)))
-            wih, wil = df64_const(np.float64(math.sin(ang)))
-            xq = tuple(p[..., j, :] for p in q)
-            term = df_cmul(xq[0], xq[1], xq[2], xq[3],
-                           jnp.float32(wrh), jnp.float32(wrl),
-                           jnp.float32(wih), jnp.float32(wil))
-            if acc is None:
-                acc = term
-            else:
-                rr = df_add(acc[0], acc[1], term[0], term[1])
-                ii = df_add(acc[2], acc[3], term[2], term[3])
-                acc = rr + ii
-        out.append(acc)
-    c = tuple(jnp.stack([o[p] for o in out], axis=-2) for p in range(4))
-
-    # twiddle w_N^(k1 * j2_global): host-exact df64 table, sharded to this
-    # device's (s, L/s) tile
-    c = df_cmul(c[0], c[1], c[2], c[3], twq[0], twq[1], twq[2], twq[3])
-
-    # full j2 range for this device's k1
-    e = tuple(a2a(p, -2, -1).reshape(*lead, L) for p in c)
-
-    # heavy on-chip df64 factor
-    f = fft_axis_df64(e, sign, axis=-1)
-
-    # strided k -> contiguous shards + local interleave
-    g = tuple(a2a(p.reshape(*lead, s, L // s), -2, -1) for p in f)
-    g = tuple(jnp.swapaxes(p.reshape(*lead, s, L // s), -1, -2)
-              .reshape(*lead, L) for p in g)
-    if norm != 1.0:
-        rh2, rl2 = df_scale_pow2(g[0], g[1], norm)
-        ih2, il2 = df_scale_pow2(g[2], g[3], norm)
-        g = (rh2, rl2, ih2, il2)
-    return g
-
-
-def make_dist_fft_df64(mesh: Mesh, n: int, *, batch_axis: str = "dp",
-                       seq_axis: str = "sp", sign: int = -1,
-                       normalize: bool = False):
-    """Build a jitted distributed complex128 1D FFT over ``mesh``.
-
-    Input/output: a df64 planar quad (rh, rl, ih, il) of f32 arrays of
-    shape (B, n) (``ops.df64.split_f64`` converts from f64), batch sharded
-    over ``batch_axis``, transform axis over ``seq_axis``.  Accuracy is the
-    single-chip df64 contract (~1e-13 vs numpy complex128).
-    """
-    from pyfft_tpu.ops.df64 import df64_const
-
-    if not is_power_of_two(n):
-        raise ValueError(f"n={n} is not a power of two")
-    s = mesh.shape[seq_axis]
-    if n % (s * s) != 0:
-        raise ValueError(f"n={n} must be divisible by seq_parallel^2={s*s}")
-    norm = (1.0 / n) if (normalize and sign > 0) else 1.0
-
-    # host-exact df64 twiddle table T[k1, j2] = w_n^(k1*j2), (s, L) sharded
-    # over j2 so each device receives its (s, L/s) tile
-    L = n // s
-    k1 = np.arange(s, dtype=np.int64)[:, None]
-    j2 = np.arange(L, dtype=np.int64)[None, :]
-    ang = (sign * 2.0 * np.pi / n) * ((k1 * j2) % n).astype(np.float64)
-    twq = tuple(jnp.asarray(a) for pair in (df64_const(np.cos(ang)),
-                                            df64_const(np.sin(ang)))
-                for a in pair)
-
-    spec = P(batch_axis, seq_axis)
-    tspec = P(None, seq_axis)
-    body = functools.partial(_dist_fft_df64_body, sign=sign, n=n, s=s,
-                             seq_axis=seq_axis, norm=norm)
-    mapped = jax.shard_map(
-        body, mesh=mesh,
-        in_specs=((spec,) * 4 + ((tspec,) * 4,)),
-        out_specs=(spec,) * 4, check_vma=False)
-    return jax.jit(lambda rh, rl, ih, il: mapped(rh, rl, ih, il, twq))
+                             scale=scale)
+    return _shard_mapped(body, mesh, P(batch_axis, seq_axis, None, None))
 
 
 def dist_fft_1d(re, im, mesh: Mesh, *, sign: int = -1,

@@ -1,199 +1,39 @@
-"""Pass scheduler: shape/dtype → executable pass IR.
+"""Plan validation: the transform shape and dtype a ``Plan`` accepts.
 
-TPU-native analog of the reference's plan construction
-(``pyfft/plan.py`` + ``pyfft/kernel.py``: LocalFFTKernel vs
-GlobalFFTKernel.createChain — SURVEY.md §2.2/§2.3/§3.1).  The reference
-decided at plan time, per axis, between a shared-memory-resident kernel and a
-chain of global radix passes, sized against GPU shared memory and registers,
-with a compile-retry fallback that halved the block size.
-
-Here the same decision is a *static capacity model* against VMEM (~16 MiB a
-core): an axis either fits a fused VMEM-resident Pallas kernel (``local``),
-or is scheduled as a four-step decomposition whose sub-transforms recurse
-until they fit (``fourstep``), or falls back to the pure-XLA matmul path
-(``xla``) when no Pallas kernel applies (non-TPU backend, float64, axis
-layouts not yet covered).  There is no compile-retry loop: TPU kernel
-resource use is statically known, so the model is conservative up front.
-
-Everything in this module is pure and cheap; it runs once per Plan.
+The reference decided at plan time, per axis, between a shared-memory
+kernel and a chain of global radix passes (``pyfft/plan.py`` +
+``pyfft/kernel.py`` — SURVEY.md §2.2/§2.3/§3.1).  Here every transform is
+one XLA FFT op over all of the plan's axes, and on an NVIDIA GPU XLA hands
+it to cuFFT, which makes that same decision itself.  What is left at plan
+time is checking that the request is one this library supports.
 """
 
 from __future__ import annotations
 
-import dataclasses
-import math
-from typing import Literal
-
 import numpy as np
 
-from pyfft_tpu.utils.radix import ilog2, is_power_of_two
+from pyfft_tpu.utils.radix import is_power_of_two
 
-__all__ = ["AxisPass", "ExecPlan", "build_plan", "VMEM_BUDGET_BYTES"]
+__all__ = ["validate"]
 
-# Usable VMEM per core for one kernel's working set.  Physical VMEM is
-# ~16 MiB; we budget ~3/4 of it for data (in + out + one scratch plane set,
-# double-buffered pipelining handled by Pallas grid pipelining itself).
-VMEM_BUDGET_BYTES = 12 * 1024 * 1024
-
-# Smallest batch tile worth putting through a Pallas kernel: 8 sublanes of
-# f32.  Below this the XLA path wins on launch overhead alone.
-_MIN_BATCH_TILE = 8
-
-Executor = Literal["xla", "local", "fourstep", "huge", "fused2d"]
+_DTYPES = (np.dtype(np.complex64), np.dtype(np.complex128))
 
 
-@dataclasses.dataclass(frozen=True)
-class AxisPass:
-    """One scheduled pass over one transform axis.
+def validate(shape, dtype) -> tuple[tuple[int, ...], np.dtype]:
+    """Normalise ``shape`` and ``dtype``; raise ValueError if unsupported.
 
-    ``fourstep`` passes carry the (n1, n2) factorization: n2-sized
-    sub-transforms are contiguous (lane-friendly), n1-sized ones are strided
-    and handled with the transform batch folded into matmul rows.
+    Supported: rank 1-3, every axis a power of two, complex64 or
+    complex128 (the reference's scope, SURVEY.md §2.9-bis).
     """
-
-    axis: int                 # axis index within the *transform* shape
-    n: int                    # transform length along this axis
-    executor: Executor
-    split: tuple[int, int] | None = None   # (n1, n2) for fourstep
-
-
-@dataclasses.dataclass(frozen=True)
-class ExecPlan:
-    shape: tuple[int, ...]          # transform shape, e.g. (1024, 1024)
-    dtype: np.dtype                 # complex dtype of the user data
-    passes: tuple[AxisPass, ...]    # one per axis, innermost (last) axis first
-    itemsize_plane: int             # bytes per real plane element (4 or 8)
-
-    @property
-    def total_n(self) -> int:
-        n = 1
-        for s in self.shape:
-            n *= s
-        return n
-
-
-def _local_fits(n: int, itemsize: int, budget: int = VMEM_BUDGET_BYTES) -> bool:
-    """Can a length-n axis live in one VMEM-resident kernel tile?
-
-    Working set per batch tile: 2 planes (re, im) x (in + out + scratch)
-    = 6 buffers of MIN_BATCH_TILE x n elements, plus DFT/twiddle tables
-    (bounded by 4 * 128 * 128 elements per level).
-    """
-    data = 6 * _MIN_BATCH_TILE * n * itemsize
-    tables = 4 * 128 * 128 * itemsize * max(1, ilog2(max(n, 2)) // 7)
-    return data + tables <= budget
-
-
-def build_plan(shape: tuple[int, ...], dtype, *, on_tpu: bool,
-               max_local_n: int | None = None) -> ExecPlan:
-    """Schedule one pass per transform axis.
-
-    The reference iterated x, then y, then z kernels (SURVEY.md §3.1); we
-    schedule the innermost (contiguous) axis first for the same reason —
-    later axes then operate on data whose layout the previous pass produced.
-    """
+    if isinstance(shape, (int, np.integer)):
+        shape = (int(shape),)
     shape = tuple(int(s) for s in shape)
-    if not (1 <= len(shape) <= 3):
+    if not 1 <= len(shape) <= 3:
         raise ValueError(f"FFT rank must be 1..3, got shape {shape}")
     for s in shape:
         if not is_power_of_two(s):
             raise ValueError(f"transform size {s} is not a power of two")
     dtype = np.dtype(dtype)
-    if dtype not in (np.dtype(np.complex64), np.dtype(np.complex128)):
+    if dtype not in _DTYPES:
         raise ValueError(f"dtype must be complex64 or complex128, got {dtype}")
-    itemsize = 4 if dtype == np.dtype(np.complex64) else 8
-
-    # complex64 rides the MXU Pallas kernels; complex128 rides the
-    # double-float (two-f32) VPU Pallas kernels (ops/pallas_df64.py) with
-    # the XLA f64 path as the residual fallback.
-    pallas_ok = on_tpu and itemsize == 4
-    pallas_df64_ok = on_tpu and itemsize == 8
-
-    if max_local_n is None:
-        if pallas_df64_ok:
-            from pyfft_tpu.ops.pallas_df64 import (
-                MAX_LOCAL_N_DF64 as max_local_n)
-        else:
-            from pyfft_tpu.ops.pallas_local import MAX_LOCAL_N as max_local_n
-
-    passes = []
-    ndim = len(shape)
-    axes = list(reversed(range(ndim)))
-    if pallas_ok and ndim >= 2:
-        # Fused 2D: the last two axes in ONE kernel / one HBM round trip
-        # when the whole (ny, nx) tile fits VMEM (the TPU-native collapse
-        # of the reference's separate row+column kernel passes).
-        from pyfft_tpu.ops.pallas_local import MAX_FUSED2D_ELEMS
-        ny, nx = shape[-2], shape[-1]
-        if (ny % 128 == 0 and nx % 128 == 0
-                and ny * nx <= MAX_FUSED2D_ELEMS):
-            passes.append(AxisPass(axis=ndim - 2, n=ny * nx,
-                                   executor="fused2d", split=(ny, nx)))
-            axes = axes[2:]
-    kernels_ok = pallas_ok or pallas_df64_ok
-    for axis in axes:
-        n = shape[axis]
-        if kernels_ok and _local_fits(n, itemsize) and n <= max_local_n:
-            passes.append(AxisPass(axis=axis, n=n, executor="local"))
-        elif (kernels_ok and axis == ndim - 1
-              and n > max_local_n * max_local_n):
-            # beyond one four-step level: the two-level (six-step) chain
-            # (c64 via ops/fourstep; c128 via the df64 twin, whose factors
-            # stay at the tw+swap compile ceiling)
-            from pyfft_tpu.ops.fourstep import choose_split3
-            if pallas_df64_ok:
-                from pyfft_tpu.ops.pallas_df64 import HUGE_MAX_F_DF64
-                cap = HUGE_MAX_F_DF64
-            else:
-                cap = max_local_n
-            try:
-                choose_split3(n, cap)
-            except ValueError:
-                passes.append(AxisPass(axis=axis, n=n, executor="xla"))
-                continue
-            passes.append(AxisPass(axis=axis, n=n, executor="huge"))
-        elif (kernels_ok and axis == ndim - 1
-              and max_local_n < n <= max_local_n * max_local_n):
-            # Beyond one VMEM tile: four-step through HBM.  The recorded
-            # split is the one the executor will actually use (c64: MXU
-            # cost model; c128: the df64 kernels' balanced split).  No
-            # valid split (both factors must be >= one lane tile, e.g.
-            # c128 n=4096 with its 2048 local cap) -> XLA fallback.
-            try:
-                if pallas_df64_ok:
-                    from pyfft_tpu.ops.pallas_df64 import _choose_split_df64
-                    split = _choose_split_df64(n, max_local_n)
-                    if not all(128 <= f <= max_local_n for f in split):
-                        raise ValueError("no df64 split")
-                else:
-                    from pyfft_tpu.ops.fourstep import choose_split
-                    split = choose_split(n, max_local_n)
-            except ValueError:
-                passes.append(AxisPass(axis=axis, n=n, executor="xla"))
-                continue
-            passes.append(AxisPass(axis=axis, n=n, executor="fourstep",
-                                   split=split))
-        elif (pallas_ok and axis != ndim - 1
-              and max_local_n < n <= max_local_n * max_local_n):
-            # non-final axis beyond one VMEM tile: the strided-twiddle
-            # four-step (ops/fourstep.fft_axis_mid), covering the
-            # reference's Y/Z global radix chains (SURVEY §2.5).  Needs a
-            # lane-tile-aligned trailing extent and a VMEM-resident level
-            # twiddle; otherwise XLA.
-            from pyfft_tpu.ops.fourstep import (MAX_MID_TW_BYTES,
-                                                choose_split)
-            trail = math.prod(shape[axis + 1:])
-            try:
-                split = choose_split(n, max_local_n)
-            except ValueError:
-                split = None
-            if (split is None or trail % 128
-                    or n * 8 > MAX_MID_TW_BYTES):
-                passes.append(AxisPass(axis=axis, n=n, executor="xla"))
-                continue
-            passes.append(AxisPass(axis=axis, n=n, executor="fourstep",
-                                   split=split))
-        else:
-            passes.append(AxisPass(axis=axis, n=n, executor="xla"))
-    return ExecPlan(shape=shape, dtype=dtype, passes=tuple(passes),
-                    itemsize_plane=itemsize)
+    return shape, dtype

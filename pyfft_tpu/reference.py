@@ -1,34 +1,30 @@
 """Planar (split re/im) matmul-form FFT in pure ``jax.numpy``.
 
-This is the framework's L0 compute path (SURVEY.md §7 ``reference.py``):
-a certain-by-construction implementation that runs on every JAX backend and
-float dtype (f32, f64 under x64), used as
+This is the framework's plain reference (SURVEY.md §7 ``reference.py``): a
+certain-by-construction implementation that shares no code with the
+``Plan`` path (which is one XLA FFT op) and runs on every JAX backend and
+float dtype (f32, f64 under x64).  It is
 
-* the fallback for anything the Pallas kernels don't cover (notably the
-  complex128 path — this TPU stack executes real float64), and
-* the oracle the kernels are cross-checked against in tests.
+* an independent oracle the ``Plan`` path is cross-checked against in the
+  tests and, at full size on the card, in ``chip_smoke.py``, and
+* the einsum chain the ``Plan`` path is timed against there.
 
-Design (TPU-first, not a translation):
-The reference (``pyfft/kernels.mako``, SURVEY.md §2.5) emits radix-2/4/8
-*register butterflies* — the right shape for a GPU SIMT core, the wrong one
-for a machine whose FLOPs live in a 128x128 systolic array.  Here a length-n
-transform along any axis is a **mixed-radix chain of einsum contractions**:
-with the axis reshaped to factors (f_1, ..., f_m), stage i contracts factor
-i against the f_i-point DFT matrix and moves the new spectral digit to the
-front of the factor block,
+Design: a length-n transform along any axis is a **mixed-radix chain of
+einsum contractions**: with the axis reshaped to factors (f_1, ..., f_m),
+stage i contracts factor i against the f_i-point DFT matrix and moves the
+new spectral digit to the front of the factor block,
 
     x[..., k_{i-1}, ..., k_1, j_i, rest...]
-      -> sum_j W_fi[k_i, j_i] * x[...]        (einsum, MXU)
-      -> * twiddle[k_i, rest]                 (broadcast, VPU)
+      -> sum_j W_fi[k_i, j_i] * x[...]        (einsum)
+      -> * twiddle[k_i, rest]                 (broadcast)
 
 so after m stages the factor block reads (k_m, ..., k_1) — exactly the DFT
-output digit order: **no bit-reversal permutation and no explicit transpose
-ops anywhere** (XLA folds any layout changes into the contractions, which
-is measurably better than materializing ``swapaxes`` copies in HBM).
+output digit order: no bit-reversal permutation and no explicit transpose.
+Every contraction runs at ``Precision.HIGHEST`` by default, so a float32
+product is never rounded to TF32 on a GPU.
 
 Everything is planar: complex z is carried as (Re z, Im z) float arrays and
-a complex contraction is 4 real einsums — MXU-native, and the only option
-on a backend with no complex types.
+a complex contraction is 4 real einsums.
 """
 
 from __future__ import annotations
@@ -46,7 +42,7 @@ from pyfft_tpu.utils.radix import is_power_of_two
 
 __all__ = ["fft_planar", "fftn_planar", "DEFAULT_BASE"]
 
-# Largest DFT factor contracted in one einsum. 128 matches the MXU width.
+# Largest DFT factor contracted in one einsum.
 DEFAULT_BASE = 128
 
 Array = jax.Array

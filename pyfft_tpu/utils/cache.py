@@ -1,60 +1,62 @@
 """Persistent compilation cache + plan warmup.
 
-The reference's plans compiled in seconds (nvcc on a kernel string —
-SURVEY.md §3.1 "hot spot"); this environment's Mosaic compiles go through a
-shared service where a fresh large kernel can take minutes.  Two remedies:
+The reference's plans compiled at plan time (nvcc on a kernel string —
+SURVEY.md §3.1 "hot spot"); here XLA compiles each executable on its first
+call.  Two remedies keep that off the hot path:
 
 * ``enable_compile_cache()`` — turns on JAX's persistent compilation cache
-  so every kernel is compiled **once per machine**, not once per process.
-  Called automatically by ``Plan`` on TPU backends (opt out with
-  ``PYFFT_TPU_NO_CACHE=1`` or by configuring your own cache dir first).
-* ``warmup(shapes, ...)`` — precompiles the kernel set for given transform
+  so an executable is compiled once per cache directory, not once per
+  process.  Called automatically by the first ``Plan`` (opt out with
+  ``PYFFT_TPU_NO_CACHE=1``).  The directory is ``JAX_COMPILATION_CACHE_DIR``
+  when that is set, else one the host application configured first, else
+  ``.jax_cache/`` at the root of this checkout — a fixed path, because the
+  path is part of what makes a later process find the entries again.
+* ``warmup(shapes, ...)`` — precompiles the executables for given transform
   shapes (both directions) so first real ``execute`` calls are instant;
   run it once at deploy time to populate the cache.
 """
 
 from __future__ import annotations
 
-import math
 import os
 
 import jax
 
-__all__ = ["enable_compile_cache", "warmup"]
+__all__ = ["enable_compile_cache", "warmup", "DEFAULT_DIR"]
 
-_DEFAULT_DIR = os.path.join(
-    os.path.expanduser("~"), ".cache", "pyfft_tpu", "xla_cache")
+DEFAULT_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".jax_cache")
 
 _enabled = False
 
 
-def enable_compile_cache(path: str | None = None,
-                         aggressive: bool = False) -> str | None:
+def enable_compile_cache(path: str | None = None) -> str | None:
     """Enable JAX's persistent compilation cache (idempotent).
 
     Returns the cache directory in use, or None if caching was declined
-    (user opt-out, or a cache dir is already configured elsewhere).
+    (``PYFFT_TPU_NO_CACHE`` is set).  ``JAX_COMPILATION_CACHE_DIR`` wins
+    over everything, ``path`` included; a directory the host application
+    configured first is respected.
 
-    The auto-enable path (from ``Plan`` on TPU) sets ONLY the cache
-    directory: JAX's default thresholds (min compile time ~1 s) already
-    admit every expensive FFT kernel while keeping the host application's
-    cheap compiles out of the cache.  Pass ``aggressive=True`` to also
-    zero the time/size thresholds (cache absolutely everything).
+    Only the directory is set: JAX's default thresholds (min compile time
+    ~1 s) keep the host application's cheap compiles out of the cache.
     """
     global _enabled
     if _enabled:
         return jax.config.jax_compilation_cache_dir
     if os.environ.get("PYFFT_TPU_NO_CACHE"):
         return None
-    if jax.config.jax_compilation_cache_dir:
-        _enabled = True          # user already configured one — respect it
-        return jax.config.jax_compilation_cache_dir
-    path = path or os.environ.get("PYFFT_TPU_CACHE_DIR", _DEFAULT_DIR)
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        path = env
+    elif jax.config.jax_compilation_cache_dir:
+        path = jax.config.jax_compilation_cache_dir
+    else:
+        path = path or DEFAULT_DIR
     os.makedirs(path, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", path)
-    if aggressive:
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+    if jax.config.jax_compilation_cache_dir != path:
+        jax.config.update("jax_compilation_cache_dir", path)
     _enabled = True
     return path
 
@@ -64,9 +66,8 @@ def warmup(shapes, dtypes=("complex64",), batches=(1,),
     """Precompile plan executables for the given transform shapes.
 
     ``shapes``: iterable of ints or tuples (as accepted by ``Plan``).
-    ``batches``: leading batch sizes to trace (batch shape is part of the
-    jit key; the Pallas kernels themselves are batch-size-independent, so
-    one batch is usually enough to populate the kernel cache).
+    ``batches``: leading batch sizes to compile (the batch shape is part
+    of the executable's key).
     Returns the number of executables compiled.
     """
     import numpy as np
@@ -84,10 +85,10 @@ def warmup(shapes, dtypes=("complex64",), batches=(1,),
             real = np.float32 if dtype == np.dtype("complex64") else np.float64
             for b in batches:
                 lead = (b,) if b and b > 1 else ()
-                ex = jax.ShapeDtypeStruct(lead + shape, real)
+                ex = jax.ShapeDtypeStruct(lead + tuple(shape), real)
                 dirs = (False, True) if inverse_too else (False,)
                 for inv in dirs:
-                    fn = plan._get_callable(lead, inv, "planar")
+                    fn = plan._get_callable(inv, "planar")
                     fn.lower(ex, ex).compile()   # fn is already jitted (AOT)
                     count += 1
     return count

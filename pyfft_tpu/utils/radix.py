@@ -1,11 +1,9 @@
-"""Radix / factorization math for the FFT planner.
+"""Radix / factorization math.
 
-This is the TPU-native analog of the reference's radix helpers
-(``pyfft/kernel_helpers.py``: ``log2``, ``getRadixArray``,
-``getGlobalRadixInfo`` — see SURVEY.md §2.4).  The reference chose radices to
-fit GPU register files and shared memory; here the planner chooses factor
-splits to fit MXU tile geometry (contraction dims near 128) and the VMEM
-capacity model, so the *math* is re-derived, not translated.
+The analog of the reference's radix helpers (``pyfft/kernel_helpers.py``:
+``log2``, ``getRadixArray``, ``getGlobalRadixInfo`` — see SURVEY.md §2.4).
+``is_power_of_two`` validates every plan; the splitting helpers are the
+factorisations the reference's kernel generator chose between.
 
 All functions are pure and run at plan (trace) time only.
 """
@@ -42,8 +40,7 @@ def radix_decompose(n: int, max_radix: int) -> list[int]:
 
     Analog of the reference's ``getRadixArray(n, max_radix)``
     (SURVEY.md §2.4), re-derived: returns the largest-first list of
-    power-of-two radices whose product is ``n``.  The planner uses this to
-    bound recursion depth of the four-step scheduler.
+    power-of-two radices whose product is ``n``.
     """
     if not is_power_of_two(max_radix):
         raise ValueError("max_radix must be a power of two")
@@ -55,7 +52,7 @@ def radix_decompose(n: int, max_radix: int) -> list[int]:
         radices.append(1 << r)
         p -= r
     # Rebalance the tail: prefer e.g. [8, 4, 4] over [8, 8, 1]-style skew —
-    # two mid-size contractions beat one large + one tiny on the MXU.
+    # two mid-size stages instead of one large and one tiny.
     if len(radices) >= 2 and radices[-1] * 4 <= radices[-2]:
         total = radices[-1] * radices[-2]
         radices[-2], radices[-1] = balanced_split(total)
@@ -67,9 +64,8 @@ def fourstep_split(n: int, max_base: int) -> tuple[int, int]:
 
     Strategy: if ``n`` fits a single base-case DFT matmul the caller should
     not be splitting at all; otherwise peel factors so that the *second*
-    (contiguous, lane-friendly) factor is as large as possible without
-    exceeding ``max_base``.  This keeps the final-stage contraction dim close
-    to the 128-lane MXU width.
+    (contiguous) factor is as large as possible without exceeding
+    ``max_base``.
     """
     if n <= max_base:
         raise ValueError(f"n={n} fits the base case (max_base={max_base})")

@@ -1,7 +1,9 @@
 """Distributed FFT over the 8-virtual-device CPU mesh (conftest forces it).
 
 Validates the shard_map four-step: batch sharding over 'dp', transform-axis
-sharding over 'sp' with all_to_all exchanges, vs numpy.fft.
+sharding over 'sp' with all_to_all exchanges, vs numpy.fft; and that no
+contraction in the shard_map bodies may run below float32 precision (a
+float32 dot without HIGHEST may run in TF32 on a GPU).
 """
 
 import jax
@@ -9,7 +11,10 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from pyfft_tpu.parallel import dist_fft_1d, make_dist_fft
+from jax.sharding import NamedSharding, PartitionSpec as P
+
+from pyfft_tpu.parallel import (dist_fft_1d, make_dist_fft, make_dist_fft2,
+                                make_dist_fft3)
 
 from helpers import TOL, rand_complex, rel_err
 
@@ -104,35 +109,67 @@ def test_dist_fft3_parity():
     assert np.abs(rt - x).max() / np.abs(x).max() < 2e-6
 
 
-def test_dist_fft_df64_parity():
-    """Distributed complex128 (double-float) 1D FFT at the c128 gate."""
-    import jax
-    import numpy as np
-    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-    from pyfft_tpu.ops.df64 import split_f64
-    from pyfft_tpu.parallel.dist import make_dist_fft_df64
+_MAKERS = {1: make_dist_fft, 2: make_dist_fft2, 3: make_dist_fft3}
+_SHAPES = {1: (256,), 2: (16, 32), 3: (8, 4, 16)}
 
-    devs = jax.devices()[:8]
-    mesh = Mesh(np.array(devs).reshape(2, 4), ("dp", "sp"))
-    n = 1024
-    rng = np.random.RandomState(8)
-    x = (rng.standard_normal((4, n))
-         + 1j * rng.standard_normal((4, n))).astype(np.complex128)
-    fwd = make_dist_fft_df64(mesh, n)
-    inv = make_dist_fft_df64(mesh, n, sign=+1, normalize=True)
-    spec = NamedSharding(mesh, P("dp", "sp"))
-    rh, rl = split_f64(x.real)
-    ih, il = split_f64(x.imag)
-    quad = tuple(jax.device_put(p.astype(np.float32), spec)
-                 for p in (rh, rl, ih, il))
-    out = fwd(*quad)
-    got = (np.asarray(out[0], np.float64) + np.asarray(out[1], np.float64)
-           + 1j * (np.asarray(out[2], np.float64)
-                   + np.asarray(out[3], np.float64)))
-    ref = np.fft.fft(x, axis=-1)
-    assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-11
-    back = inv(*out)
-    rt = (np.asarray(back[0], np.float64) + np.asarray(back[1], np.float64)
-          + 1j * (np.asarray(back[2], np.float64)
-                  + np.asarray(back[3], np.float64)))
-    assert np.abs(rt - x).max() / np.abs(x).max() < 1e-11
+
+@pytest.mark.parametrize("dp,sp", [(1, 4), (2, 2)])
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128],
+                         ids=["c64", "c128"])
+@pytest.mark.parametrize("rank", [1, 2, 3], ids=["1D", "2D", "3D"])
+def test_dist_parity_matrix(rank, dtype, dp, sp):
+    """{1D, 2D, 3D} x {c64, c128} x mesh: forward vs numpy.fft, the
+    normalized inverse back to the input, the unnormalized inverse to N x."""
+    mesh = _mesh(dp, sp)
+    shape = _SHAPES[rank]
+    arg = shape[0] if rank == 1 else shape
+    make = _MAKERS[rank]
+    x = rand_complex((2,) + shape, dtype, seed=rank * 7 + sp)
+    real_dt = np.float32 if dtype == np.complex64 else np.float64
+    spec = NamedSharding(mesh, P("dp", "sp", *([None] * (rank - 1))))
+    re = jax.device_put(x.real.astype(real_dt), spec)
+    im = jax.device_put(x.imag.astype(real_dt), spec)
+    fr, fi = make(mesh, arg)(re, im)
+    assert fr.dtype == real_dt
+    got = np.asarray(fr) + 1j * np.asarray(fi)
+    axes = tuple(range(1, 1 + rank))
+    ref = np.fft.fftn(x.astype(np.complex128), axes=axes)
+    assert rel_err(got, ref) < TOL[dtype]
+    br, bi = make(mesh, arg, sign=+1, normalize=True)(fr, fi)
+    assert rel_err(np.asarray(br) + 1j * np.asarray(bi), x) < TOL[dtype]
+    ur, ui = make(mesh, arg, sign=+1)(fr, fi)
+    n = int(np.prod(shape))
+    assert rel_err(np.asarray(ur) + 1j * np.asarray(ui), n * x) < TOL[dtype]
+
+
+def _dot_precisions(jaxpr):
+    """The precision of every dot_general in ``jaxpr``, sub-jaxprs included
+    (the shard_map body is one)."""
+    found = []
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "dot_general":
+            found.append(eqn.params["precision"])
+        for v in eqn.params.values():
+            for sub in (v if isinstance(v, (tuple, list)) else (v,)):
+                inner = getattr(sub, "jaxpr", sub)
+                if hasattr(inner, "eqns"):
+                    found += _dot_precisions(inner)
+    return found
+
+
+@pytest.mark.parametrize("rank", [1, 2, 3], ids=["1D", "2D", "3D"])
+def test_dist_bodies_contract_at_highest_precision(rank):
+    """Every dot_general in a dist body asks for HIGHEST precision (or the
+    body has none): the CPU-checkable stand-in for "no TF32 on the card"."""
+    mesh = _mesh(1, 4)
+    shape = _SHAPES[rank]
+    arg = shape[0] if rank == 1 else shape
+    ex = jax.ShapeDtypeStruct((2,) + shape, np.float32)
+    for sign in (-1, +1):
+        jaxpr = jax.make_jaxpr(_MAKERS[rank](mesh, arg, sign=sign))(ex, ex)
+        precisions = _dot_precisions(jaxpr.jaxpr)
+        if rank == 1:
+            assert precisions, "the 1D body's cross-device DFT is a dot"
+        for prec in precisions:
+            pair = prec if isinstance(prec, tuple) else (prec, prec)
+            assert all(p == jax.lax.Precision.HIGHEST for p in pair), prec

@@ -143,40 +143,16 @@ def test_functional_api():
 
 
 def test_backend_shims():
-    from pyfft_tpu import cpu, tpu
+    """pyfft_tpu.cpu.Plan is the package's Plan (the pyfft.cl analog)."""
+    from pyfft_tpu import cpu
+    assert cpu.Plan is Plan
     x = rand_complex((512,), seed=17)
     ref = np.fft.fft(x.astype(np.complex128))
     assert rel_err(cpu.Plan((512,)).execute(x), ref) < TOL[np.complex64]
-    assert rel_err(tpu.Plan((512,)).execute(x), ref) < TOL[np.complex64]
 
 
 def test_repr():
-    assert "1024" in repr(Plan((1024,)))
-
-
-def test_view_path_interleaved(monkeypatch):
-    """The TPU interleaved path (host bitcast view -> planar device compute)
-    — forced on CPU by pretending complex dtypes are unavailable."""
-    import pyfft_tpu.plan as planmod
-    monkeypatch.setattr(planmod, "_complex_on_device_ok", lambda: False)
-    x = rand_complex((4, 512), seed=21)
-    plan = Plan((512,))
-    out = plan.execute(x)
-    assert isinstance(out, np.ndarray) and out.dtype == np.complex64
-    ref = np.fft.fft(x.astype(np.complex128), axis=-1)
-    assert rel_err(out, ref) < TOL[np.complex64]
-    rt = plan.execute(out, inverse=True)
-    assert rel_err(rt, x) < TOL[np.complex64]
-
-
-def test_view_path_2d(monkeypatch):
-    import pyfft_tpu.plan as planmod
-    monkeypatch.setattr(planmod, "_complex_on_device_ok", lambda: False)
-    x = rand_complex((2, 64, 128), seed=22)
-    plan = Plan((64, 128))
-    out = plan.execute(x)
-    ref = np.fft.fft2(x.astype(np.complex128))
-    assert rel_err(out, ref) < TOL[np.complex64]
+    assert repr(Plan((1024,))) == "Plan(shape=(1024,), dtype=complex64)"
 
 
 def test_donate_plan():
@@ -191,150 +167,12 @@ def test_donate_plan():
     assert rel_err(got, ref) < TOL[np.complex64]
 
 
-def test_view_path_fused_1d(monkeypatch):
-    """TPU-style 1D interleaved: planner labels 'local', the fused
-    interleaved kernel runs (interpret mode on CPU)."""
-    import pyfft_tpu.plan as planmod
-    monkeypatch.setattr(planmod, "_complex_on_device_ok", lambda: False)
-    monkeypatch.setattr(planmod, "_on_tpu", lambda: True)
-    x = rand_complex((8, 1024), seed=24)
-    plan = Plan((1024,))
-    assert [p.executor for p in plan._exec_plan.passes] == ["local"]
-    out = plan.execute(x)
-    ref = np.fft.fft(x.astype(np.complex128), axis=-1)
-    assert rel_err(out, ref) < TOL[np.complex64]
-    rt = plan.execute(out, inverse=True)
-    assert rel_err(rt, x) < TOL[np.complex64]
-
-
-def test_df64_plan_1d(monkeypatch):
-    """complex128 plan routed through the double-float Pallas kernels
-    (interpret mode on CPU), parity at the c128 gate."""
-    import pyfft_tpu.plan as planmod
-    monkeypatch.setattr(planmod, "_on_tpu", lambda: True)
-    x = rand_complex((4, 2048), seed=31, dtype=np.complex128)
-    plan = Plan((2048,), np.complex128)
-    assert [p.executor for p in plan._exec_plan.passes] == ["local"]
-    rr, ii = plan.execute(np.real(x), np.imag(x))
-    got = np.asarray(rr) + 1j * np.asarray(ii)
-    ref = np.fft.fft(x, axis=-1)
-    assert rel_err(got, ref) < 1e-12
-    br, bi = plan.execute(rr, ii, inverse=True)
-    rt = np.asarray(br) + 1j * np.asarray(bi)
-    assert rel_err(rt, x) < TOL[np.complex128]
-
-
-def test_df64_plan_large_1d(monkeypatch):
-    """complex128 four-step (n beyond the df64 local kernel)."""
-    import pyfft_tpu.plan as planmod
-    import pyfft_tpu.ops.pallas_df64 as dfk
-    monkeypatch.setattr(planmod, "_on_tpu", lambda: True)
-    monkeypatch.setattr(dfk, "MAX_LOCAL_N_DF64", 256)
-    n = 1 << 16
-    x = rand_complex((2, n), seed=32, dtype=np.complex128)
-    plan = Plan((n,), np.complex128)
-    assert [p.executor for p in plan._exec_plan.passes] == ["fourstep"]
-    rr, ii = plan.execute(np.real(x), np.imag(x))
-    got = np.asarray(rr) + 1j * np.asarray(ii)
-    ref = np.fft.fft(x, axis=-1)
-    assert rel_err(got, ref) < TOL[np.complex128]
-
-
-def test_df64_plan_chunked_batch(monkeypatch):
-    """Batched c128 plan over the HBM chunk budget: the lax.map sweep
-    routes through the df64 QUAD path with its lean fudge (16 vs the XLA
-    recursion's 128 — config-5 throughput fix, r4), parity at the gate."""
-    import pyfft_tpu.plan as planmod
-    monkeypatch.setattr(planmod, "_on_tpu", lambda: True)
-    monkeypatch.setattr(planmod, "_HBM_CHUNK_BUDGET", 1 << 20)
-    x = rand_complex((8, 2048), seed=34, dtype=np.complex128)
-    plan = Plan((2048,), np.complex128)
-    # budget 1 MiB / (2048 * 8 B * fudge 16) = chunk 4: two map steps
-    rr, ii = plan.execute(np.real(x), np.imag(x))
-    got = np.asarray(rr) + 1j * np.asarray(ii)
-    ref = np.fft.fft(x, axis=-1)
-    assert rel_err(got, ref) < TOL[np.complex128]
-
-
-def test_df64_view_chunked_batch(monkeypatch):
-    """complex-in/complex-out c128 with a batch over the HBM chunk budget:
-    execute must split to planar on the HOST (no device-native f64
-    deinterleave exists) and run the chunked planar path — the in-jit XLA
-    slice/stack fallback compiled a batch-40 2^22 input to 16 GiB of
-    padded HLO temps on real TPU (r4i verify-drive OOM)."""
-    import pyfft_tpu.plan as planmod
-    monkeypatch.setattr(planmod, "_complex_on_device_ok", lambda: False)
-    monkeypatch.setattr(planmod, "_on_tpu", lambda: True)
-    monkeypatch.setattr(planmod, "_HBM_CHUNK_BUDGET", 1 << 20)
-    x = rand_complex((8, 2048), seed=35, dtype=np.complex128)
-    plan = Plan((2048,), np.complex128)
-    out = plan.execute(x)
-    assert isinstance(out, np.ndarray) and out.dtype == np.complex128
-    ref = np.fft.fft(x, axis=-1)
-    assert rel_err(out, ref) < TOL[np.complex128]
-
-
-def test_df64_plan_2d(monkeypatch):
-    """complex128 2D: two df64 column/row passes."""
-    import pyfft_tpu.plan as planmod
-    monkeypatch.setattr(planmod, "_on_tpu", lambda: True)
-    x = rand_complex((256, 256), seed=33, dtype=np.complex128)
-    plan = Plan((256, 256), np.complex128)
-    rr, ii = plan.execute(np.real(x), np.imag(x))
-    got = np.asarray(rr) + 1j * np.asarray(ii)
-    ref = np.fft.fftn(x)
-    # two compounded df64 passes with the gate-tuned int8-MXU channels
-    # measure ~1.1e-12; the c128 contract gate is 1e-11 (TOL)
-    assert rel_err(got, ref) < TOL[np.complex128]
-
-
-def test_fused2d_plan(monkeypatch):
-    """2D c64 plan collapses to one fused kernel pass (interpret mode)."""
-    import pyfft_tpu.plan as planmod
-    monkeypatch.setattr(planmod, "_on_tpu", lambda: True)
-    x = rand_complex((2, 256, 128), seed=34)
-    plan = Plan((256, 128))
-    assert [p.executor for p in plan._exec_plan.passes] == ["fused2d"]
-    rr, ii = plan.execute(np.real(x).astype(np.float32),
-                          np.imag(x).astype(np.float32))
-    got = np.asarray(rr) + 1j * np.asarray(ii)
-    ref = np.fft.fftn(x.astype(np.complex128), axes=(1, 2))
-    assert rel_err(got, ref) < TOL[np.complex64]
-    br, bi = plan.execute(rr, ii, inverse=True)
-    rt = np.asarray(br) + 1j * np.asarray(bi)
-    assert rel_err(rt, x) < TOL[np.complex64]
-
-
-def test_df64_view_path(monkeypatch):
-    """complex128 interleaved (complex-in/complex-out) on a TPU-style
-    backend: host bitcast view -> planar df64 quad compute."""
-    import pyfft_tpu.plan as planmod
-    monkeypatch.setattr(planmod, "_complex_on_device_ok", lambda: False)
-    monkeypatch.setattr(planmod, "_on_tpu", lambda: True)
-    x = rand_complex((3, 512), seed=41, dtype=np.complex128)
-    plan = Plan((512,), np.complex128)
-    out = plan.execute(x)
-    assert isinstance(out, np.ndarray) and out.dtype == np.complex128
-    ref = np.fft.fft(x, axis=-1)
-    assert rel_err(out, ref) < TOL[np.complex128]
-    rt = plan.execute(out, inverse=True)
-    assert rel_err(rt, x) < TOL[np.complex128]
-
-
-def test_multipass_inverse_normalize(monkeypatch):
-    """Regression: on a MULTI-pass Pallas plan (2D above the fused2d cap),
-    the inverse 1/N normalization and user scale must survive — round 1
-    cleared scale_left whenever ANY pass folded its (unit) postscale,
-    silently dropping 1/N on every multi-pass inverse (ADVICE.md high)."""
-    import pyfft_tpu.plan as planmod
-    from pyfft_tpu.ops import pallas_local
-    monkeypatch.setattr(planmod, "_on_tpu", lambda: True)
-    # force the multi-pass shape class at interpret-mode-friendly sizes
-    monkeypatch.setattr(pallas_local, "MAX_FUSED2D_ELEMS", 2 ** 14)
+def test_multipass_inverse_normalize():
+    """Regression: on a 2D plan the inverse 1/N normalization and the user
+    scale must both survive (an early version dropped 1/N on every
+    multi-axis inverse)."""
     x = rand_complex((128, 256), seed=77)
     plan = Plan((128, 256))
-    execs = [p.executor for p in plan._exec_plan.passes]
-    assert len(execs) == 2 and all(e == "local" for e in execs), execs
     rr, ii = plan.execute(np.real(x).astype(np.float32),
                           np.imag(x).astype(np.float32))
     br, bi = plan.execute(rr, ii, inverse=True)
@@ -350,74 +188,22 @@ def test_multipass_inverse_normalize(monkeypatch):
         < TOL[np.complex64]
 
 
-def test_df64_fallback_to_xla(monkeypatch):
-    """c128 shape with a pass the df64 kernels don't cover (column trail
-    < 128 lanes) silently falls back to the XLA f64 path — same results."""
-    import pyfft_tpu.plan as planmod
-    monkeypatch.setattr(planmod, "_on_tpu", lambda: True)
-    x = rand_complex((256, 64), seed=42, dtype=np.complex128)
-    plan = Plan((256, 64), np.complex128)
-    rr, ii = plan.execute(np.real(x), np.imag(x))
-    got = np.asarray(rr) + 1j * np.asarray(ii)
-    ref = np.fft.fftn(x)
-    assert rel_err(got, ref) < 1e-12
-
-
-def test_fast_math_selects_chains(monkeypatch):
-    """fast_math=True -> MXU default chains; fast_math=False -> exact VPU
-    butterfly chains (the reference's precise-trig mode, SURVEY §2.9-bis).
-    Both must hold the c64 tolerance gate; the selected factor chains must
-    actually differ (VERDICT round-1 item 7: the flag was inert)."""
-    import jax.numpy as jnp
-
-    import pyfft_tpu.plan as planmod
-    from pyfft_tpu.ops import pallas_local
-
-    monkeypatch.setattr(planmod, "_on_tpu", lambda: True)
-    seen = []
-    orig = pallas_local.fft_axis
-
-    def spy(re, im, sign, **kw):
-        seen.append(kw.get("factors"))
-        return orig(re, im, sign, **kw)
-
-    monkeypatch.setattr(pallas_local, "fft_axis", spy)
-    x = rand_complex((8, 1024), seed=40)
-    re, im = jnp.asarray(x.real), jnp.asarray(x.imag)
-    ref = np.fft.fft(x.astype(np.complex128), axis=-1)
-
-    rr, ii = Plan((1024,), fast_math=True).execute(re, im)
-    assert seen[-1] is None          # calibrated MXU chain
-    assert rel_err(np.asarray(rr) + 1j * np.asarray(ii), ref) \
-        < TOL[np.complex64]
-
-    rr, ii = Plan((1024,), fast_math=False).execute(re, im)
-    assert seen[-1] == pallas_local.butterfly_factors(1024) == (4,) * 5
-    assert rel_err(np.asarray(rr) + 1j * np.asarray(ii), ref) \
-        < TOL[np.complex64]
-
-
-def test_fast_math_false_large_n_still_works(monkeypatch):
-    """Above MAX_BUTTERFLY_N the precise chain falls back to the default
-    (still within the documented gate) instead of an unsafe compile."""
-    from pyfft_tpu.ops import pallas_local
-
-    assert pallas_local.precise_factors(2048) == (2,) + (4,) * 5
-    assert pallas_local.precise_factors(4096) is None
+def test_fast_math_false_large_n_still_works():
+    """fast_math is accepted for API familiarity and changes nothing:
+    cuFFT has no fast-math switch."""
     x = rand_complex((4, 4096), seed=41)
     out = Plan((4096,), fast_math=False).execute(x)
     ref = np.fft.fft(x.astype(np.complex128), axis=-1)
     assert rel_err(out, ref) < TOL[np.complex64]
+    same = Plan((4096,), fast_math=True).execute(x)
+    assert np.array_equal(np.asarray(out), np.asarray(same))
 
 
-def test_warmup_compiles(tmp_path, monkeypatch):
-    """pyfft_tpu.warmup precompiles plan executables (and the persistent
-    compile cache engages) — VERDICT round-1 item 5."""
+def test_warmup_compiles():
+    """pyfft_tpu.warmup precompiles plan executables (the persistent
+    cache's placement is covered in test_cache.py)."""
     import pyfft_tpu
-    import pyfft_tpu.utils.cache as cachemod
 
-    monkeypatch.setattr(cachemod, "_enabled", False)
-    monkeypatch.setenv("PYFFT_TPU_CACHE_DIR", str(tmp_path / "xc"))
     n = pyfft_tpu.warmup([64, (32, 32)], batches=(1, 4))
     assert n == 2 * 2 * 2  # shapes x batches x directions
     x = rand_complex((4, 64), seed=50)
@@ -445,33 +231,6 @@ def test_api_axis_kwargs():
         fftn(x, axes=(1, 1))
 
 
-def test_fast_math_false_c128(monkeypatch):
-    """fast_math=False restores the all-butterfly df64 chains for c128
-    (review finding: the int8-MXU default left the flag inert there)."""
-    import pyfft_tpu.plan as planmod
-    from pyfft_tpu.ops import pallas_df64
-
-    monkeypatch.setattr(planmod, "_on_tpu", lambda: True)
-    x = rand_complex((2, 1024), seed=70, dtype=np.complex128)
-    ref = np.fft.fft(x, axis=-1)
-
-    seen = []
-    orig = pallas_df64.fft_axis_df64
-
-    def spy(planes, sign, **kw):
-        out = orig(planes, sign, **kw)
-        seen.append(kw.get("fast_math", True))
-        return out
-
-    monkeypatch.setattr(pallas_df64, "fft_axis_df64", spy)
-    rr, ii = Plan((1024,), np.complex128, fast_math=False).execute(
-        np.real(x), np.imag(x))
-    assert seen and seen[-1] is False
-    got = np.asarray(rr) + 1j * np.asarray(ii)
-    # butterfly chains hold the tighter pre-round-2 accuracy
-    assert rel_err(got, ref) < 1e-12
-
-
 def test_api_axis_validation():
     """Out-of-range / wrong-arity axes raise instead of silently wrapping
     (review finding: axis=2 on a 2D array used to transform axis 0)."""
@@ -484,124 +243,3 @@ def test_api_axis_validation():
         fft2(x, axes=(0,))
     with pytest.raises(ValueError):
         fftn(x, axes=(0, 1, 0))
-
-
-def test_plan_huge_two_level(monkeypatch):
-    """Plan-level integration of the two-level six-step executor
-    (forced small local ceiling so it runs at test sizes)."""
-    import pyfft_tpu.plan as planmod
-    from pyfft_tpu.ops import pallas_local
-
-    monkeypatch.setattr(planmod, "_on_tpu", lambda: True)
-    monkeypatch.setattr(pallas_local, "MAX_LOCAL_N", 128)
-    n = 1 << 21
-    plan = Plan((n,), scale=0.5)
-    assert [p.executor for p in plan._exec_plan.passes] == ["huge"]
-    x = rand_complex((2, n), seed=91)
-    rr, ii = plan.execute(x.real.copy(), x.imag.copy())
-    got = (np.asarray(rr) + 1j * np.asarray(ii)) * 2.0
-    ref = np.fft.fft(x.astype(np.complex128), axis=-1)
-    assert rel_err(got, ref) < TOL[np.complex64]
-    br, bi = plan.execute(rr, ii, inverse=True)
-    # the user scale folds into BOTH directions: roundtrip carries 0.25
-    back = (np.asarray(br) + 1j * np.asarray(bi)) * 4.0
-    assert rel_err(back, x) < TOL[np.complex64]
-
-
-def test_mid_axis_fourstep_plan(monkeypatch):
-    """A large NON-final axis rides the strided-twiddle four-step — no
-    XLA pass anywhere in the plan (VERDICT r2 item 4; interpret on CPU)."""
-    import pyfft_tpu.plan as planmod
-    monkeypatch.setattr(planmod, "_on_tpu", lambda: True)
-    plan = Plan((16384, 128))
-    assert [p.executor for p in plan._exec_plan.passes] == \
-        ["local", "fourstep"]
-    x = rand_complex((16384, 128), seed=41)
-    rr, ii = plan.execute(np.real(x).astype(np.float32),
-                          np.imag(x).astype(np.float32))
-    got = np.asarray(rr) + 1j * np.asarray(ii)
-    ref = np.fft.fftn(x.astype(np.complex128))
-    assert rel_err(got, ref) < TOL[np.complex64]
-    br, bi = plan.execute(rr, ii, inverse=True)
-    rt = np.asarray(br) + 1j * np.asarray(bi)
-    assert rel_err(rt, x) < TOL[np.complex64]
-
-
-def test_df64_staged_multipass(monkeypatch):
-    """Multi-pass c128 plans on TPU dispatch each df64 pass as its OWN
-    compiled program (the r4 512^2 de-monolith): the planar callable is
-    the unjitted composition, and parity holds through it."""
-    import pyfft_tpu.plan as planmod
-    monkeypatch.setattr(planmod, "_on_tpu", lambda: True)
-    x = rand_complex((256, 256), seed=41, dtype=np.complex128)
-    plan = Plan((256, 256), np.complex128)
-    fn = plan._get_callable((), False, "planar")
-    # the staged path returns a plain function, not a jitted executable
-    assert not hasattr(fn, "lower")
-    rr, ii = plan.execute(np.real(x), np.imag(x))
-    got = np.asarray(rr) + 1j * np.asarray(ii)
-    ref = np.fft.fftn(x, axes=(-2, -1))
-    assert rel_err(got, ref) < TOL[np.complex128]
-
-
-def test_hbm_chunk_budget_sources(monkeypatch):
-    """_hbm_chunk_budget: module override wins; else the device's
-    bytes_limit/4; else the 4 GiB v5e constant (r4 verdict weak #7)."""
-    import pyfft_tpu.plan as planmod
-
-    monkeypatch.setattr(planmod, "_HBM_CHUNK_BUDGET", 123)
-    assert planmod._hbm_chunk_budget() == 123
-
-    class FakeDev:
-        def memory_stats(self):
-            return {"bytes_limit": 16 << 30}
-
-    monkeypatch.setattr(planmod, "_HBM_CHUNK_BUDGET", None)
-    monkeypatch.setattr(planmod, "_HBM_BUDGET_CACHE", None)
-    monkeypatch.setattr(planmod.jax, "local_devices", lambda: [FakeDev()])
-    assert planmod._hbm_chunk_budget() == 4 << 30
-
-    class NoStats:
-        def memory_stats(self):
-            return None
-
-    monkeypatch.setattr(planmod, "_HBM_BUDGET_CACHE", None)
-    monkeypatch.setattr(planmod.jax, "local_devices", lambda: [NoStats()])
-    assert planmod._hbm_chunk_budget() == 4 << 30
-
-
-def test_il1d_route_record(monkeypatch):
-    """_il1d_route follows the autotune record and falls back to the
-    calibrated streaming default on anything unrecognized (r4 verdict
-    weak #4: route by measured cost, not capability order)."""
-    import pyfft_tpu.plan as planmod
-    from pyfft_tpu.ops import pallas_local
-
-    records = {}
-    monkeypatch.setattr(pallas_local, "_tuned_factors",
-                        lambda kind, n: records.get(f"{kind}:{n}"))
-    assert planmod._il1d_route(4096) == "stream"      # no record
-    records["il1d:4096"] = ["fused"]
-    assert planmod._il1d_route(4096) == "fused"
-    records["il1d:4096"] = ["stream"]
-    assert planmod._il1d_route(4096) == "stream"
-    records["il1d:4096"] = ["garbage"]                # corrupt record
-    assert planmod._il1d_route(4096) == "stream"
-
-
-def test_df64_staged_multipass_all_splits(monkeypatch):
-    """The 512^2 de-monolith must cover every split form: a jitted
-    "complex"/"view" wrapper would rebuild the monolithic multi-kernel
-    df64 program the staged planar path exists to avoid (r5 review)."""
-    import jax.numpy as jnp
-
-    import pyfft_tpu.plan as planmod
-    monkeypatch.setattr(planmod, "_on_tpu", lambda: True)
-    x = rand_complex((256, 256), seed=42, dtype=np.complex128)
-    plan = Plan((256, 256), np.complex128)
-    for split in ("planar", "complex"):
-        fn = plan._get_callable((), False, split)
-        assert not hasattr(fn, "lower"), f"{split} callable is a monolith"
-    got = np.asarray(plan._get_callable((), False, "complex")(jnp.asarray(x)))
-    ref = np.fft.fftn(x, axes=(-2, -1))
-    assert rel_err(got, ref) < TOL[np.complex128]

@@ -1,109 +1,39 @@
-"""Planner IR unit tests — executor labeling under both backends
-(pure functions; no devices touched)."""
+"""Plan validation (pyfft_tpu.planner.validate): pure functions, no
+devices touched."""
 
 import numpy as np
 import pytest
 
-from pyfft_tpu.planner import build_plan
+from pyfft_tpu.planner import validate
 
 
-def kinds(plan):
-    # passes are stored innermost-axis first
-    return [p.executor for p in plan.passes]
+@pytest.mark.parametrize("shape,want", [
+    (1024, (1024,)),
+    (np.int64(8), (8,)),
+    ([16, 32], (16, 32)),
+    ((2, 4, 8), (2, 4, 8)),
+    ((1,), (1,)),
+])
+def test_shape_normalised(shape, want):
+    got, dtype = validate(shape, np.complex64)
+    assert got == want and all(type(s) is int for s in got)
+    assert dtype == np.dtype(np.complex64)
 
 
-def test_cpu_all_xla():
-    p = build_plan((1024,), np.complex64, on_tpu=False)
-    assert kinds(p) == ["xla"]
+@pytest.mark.parametrize("shape", [(), (2, 2, 2, 2), (24,), (16, 24), (0,),
+                                   (-4,)])
+def test_bad_shape_raises(shape):
+    with pytest.raises(ValueError):
+        validate(shape, np.complex64)
 
 
-def test_tpu_local():
-    p = build_plan((4096,), np.complex64, on_tpu=True)
-    assert kinds(p) == ["local"]
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, np.int32,
+                                   "complex256" if hasattr(np, "complex256")
+                                   else np.bool_])
+def test_bad_dtype_raises(dtype):
+    with pytest.raises(ValueError):
+        validate((16,), dtype)
 
 
-def test_tpu_fourstep():
-    p = build_plan((1 << 20,), np.complex64, on_tpu=True)
-    assert kinds(p) == ["fourstep"]
-    (ap,) = p.passes
-    n1, n2 = ap.split
-    assert n1 * n2 == 1 << 20
-
-
-def test_tpu_2d_fused():
-    """A VMEM-sized 2D transform collapses to ONE fused kernel pass."""
-    p = build_plan((512, 512), np.complex64, on_tpu=True)
-    assert kinds(p) == ["fused2d"]
-    (ap,) = p.passes
-    assert ap.split == (512, 512)
-
-
-def test_tpu_2d_too_big_for_fusion():
-    """Beyond the fused tile budget (compile-safety limit): separate
-    per-axis local passes."""
-    p = build_plan((1024, 1024), np.complex64, on_tpu=True)
-    assert kinds(p) == ["local", "local"]
-    assert [ap.axis for ap in p.passes] == [1, 0]
-
-
-def test_tpu_3d_fused_tail():
-    """3D = fused (y,x) kernel + one column pass over z."""
-    p = build_plan((256, 256, 256), np.complex64, on_tpu=True)
-    assert kinds(p) == ["fused2d", "local"]
-    assert [ap.axis for ap in p.passes] == [1, 0]
-
-
-def test_tpu_c128_df64():
-    """complex128 rides the double-float Pallas kernels on TPU."""
-    p = build_plan((2048,), np.complex128, on_tpu=True)
-    assert kinds(p) == ["local"]
-    p = build_plan((1 << 22,), np.complex128, on_tpu=True)
-    assert kinds(p) == ["fourstep"]
-    # n=4096 is a local df64 size since the int8-MXU chains lifted the
-    # compile ceilings (round 2); 8192 has no >=128x128 split under the
-    # 4096 cap... 8192 = 128*64: no -> 8192 falls back to XLA f64
-    p = build_plan((4096,), np.complex128, on_tpu=True)
-    assert kinds(p) == ["local"]
-    p = build_plan((8192,), np.complex128, on_tpu=True)
-    assert kinds(p) == ["xla"]
-
-
-def test_huge_axis_two_level():
-    """Beyond MAX_LOCAL_N^2 the c64 path schedules the two-level (six-step)
-    chain (round 1 fell back to XLA here; VERDICT item 6)."""
-    p = build_plan((1 << 27,), np.complex64, on_tpu=True)
-    assert kinds(p) == ["huge"]
-
-
-def test_total_n():
-    assert build_plan((16, 32), np.complex64, on_tpu=False).total_n == 512
-
-
-def test_autotuned_factors_override(tmp_path, monkeypatch):
-    """utils.tune winners override the static chain tables."""
-    import json
-
-    from pyfft_tpu.ops import pallas_local
-    from pyfft_tpu.utils import tune
-
-    path = tmp_path / "tuned.json"
-    json.dump({"col:512": [4, 2, 64], "row:512": [2, 4, 64]}, open(path, "w"))
-    monkeypatch.setenv("PYFFT_TPU_TUNE_FILE", str(path))
-    pallas_local.reload_tuned()
-    try:
-        assert pallas_local.col_factors(512) == (4, 2, 64)
-        assert pallas_local.row_factors(512) == (2, 4, 64)
-        assert pallas_local.col_factors(2048) == (8, 4, 64)  # static
-        # candidate generator produces valid chains
-        import math
-        for n in (256, 1024, 4096):
-            for c in tune._candidates(n):
-                assert math.prod(c) == n
-    finally:
-        # point at an empty file (not the machine's real cache, which may
-        # hold autotuned entries) before restoring module state
-        empty = tmp_path / "empty.json"
-        json.dump({}, open(empty, "w"))
-        monkeypatch.setenv("PYFFT_TPU_TUNE_FILE", str(empty))
-        pallas_local.reload_tuned()
-        pallas_local._TUNED = None   # lazy-reload from real env next use
+def test_complex128_accepted():
+    assert validate((16,), "complex128")[1] == np.dtype(np.complex128)

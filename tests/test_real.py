@@ -63,6 +63,9 @@ def test_rfft_rejects_scaling_kwargs():
         irfft(np.zeros(33, np.complex64), scale=2.0)
     with pytest.raises(ValueError):
         rfftn(np.zeros((8, 64)), scale=0.5)
+    # force_xla chose between executors that no longer exist
+    with pytest.raises(ValueError):
+        rfft(np.zeros(64), force_xla=True)
 
 
 # ------------------------------------------------------------------- N-D
